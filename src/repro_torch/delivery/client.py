@@ -1,0 +1,416 @@
+"""The unified delivery client — one Algorithm-2 implementation, any
+:class:`~repro_torch.delivery.transport.Transport`.
+
+:class:`ImageClient` is the single client-facing API of the repo.  The
+legacy entry point ``repro_torch.core.pushpull.Client`` is a thin shim that
+constructs an ``ImageClient`` over a ``LocalTransport``, so the
+compare/transfer/accounting logic exists exactly once:
+
+  * ``plan_pull`` — download the KB-sized index + recipe, run Algorithm 2
+    against the local tree, consult the local store for cross-lineage
+    dedup, and return an inspectable :class:`~repro_torch.delivery.plan.PullPlan`
+    (what will move, what it should cost) without moving a chunk;
+  * ``execute`` — stream the plan's fetch list in pipelined batches through
+    the transport, with per-source accounting and (for multi-source
+    transports) automatic failover, then verify + ingest atomically;
+  * ``push`` — Algorithm 2 against the registry head, presence-check the
+    candidate set (``has_chunks``: ship only what the backend truly lacks),
+    and hand the transport a verified push;
+  * ``upgrade`` — pull the lineage head; ``materialize`` — reconstruct.
+
+Every operation returns a :class:`~repro_torch.delivery.plan.TransferReport`.
+
+Observability: the client adopts its transport's
+:class:`~repro_torch.obs.MetricsRegistry` (so one snapshot covers the client's
+``client_*`` histograms *and* the transport's byte/latency series) and
+accepts a :class:`~repro_torch.obs.Tracer` — disabled by default, near-zero cost
+— that records one span tree per pull (``pull`` → ``plan_pull`` /
+``execute`` → per-batch ``fetch_batch`` children, attributed across the
+pipeline's pool threads via explicit parent hand-off).
+"""
+
+from __future__ import annotations
+
+import time
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, Optional, Sequence
+
+import torch
+
+from repro_torch.core import cdc
+from repro_torch.core.cdmt import (CDMT, CDMTParams, DEFAULT_PARAMS,
+                             iter_missing_leaves)
+from repro_torch.core.errors import DeliveryError
+from repro_torch.core.store import DedupStore, Recipe
+from repro_torch.kernels.ops import resolve_device
+from repro_torch.obs import (LATENCY_BUCKETS, MetricsRegistry, NULL_TRACER,
+                       Tracer)
+
+from . import wire
+from .plan import PullPlan, TransferReport
+from .transport import Transport
+
+__all__ = ["ImageClient"]
+
+
+class ImageClient:
+    """A client node (local dedup store + per-lineage CDMT) bound to one
+    transport.
+
+    ``store`` / ``indexes`` / ``tag_trees`` may be donated so several
+    clients (or the legacy shims) share one local state while talking
+    through different transports; by default the client owns fresh state.
+
+    ``device`` is where :meth:`commit` chunks: ``"cuda"`` (the default) runs
+    the CUDA boundary-scan kernel and raises on a machine without a card;
+    ``"cpu"`` runs the kernel's plain PyTorch version.  A donated store must
+    be on the same device.
+    """
+
+    def __init__(self, transport: Optional[Transport], *,
+                 device: torch.device | str = "cuda",
+                 store: Optional[DedupStore] = None,
+                 indexes: Optional[Dict[str, CDMT]] = None,
+                 tag_trees: Optional[Dict[str, CDMT]] = None,
+                 cdc_params: cdc.CDCParams = cdc.DEFAULT_PARAMS,
+                 cdmt_params: CDMTParams = DEFAULT_PARAMS,
+                 directory: Optional[str] = None,
+                 batch_chunks: int = 64, pipeline_depth: int = 4,
+                 metrics: Optional[MetricsRegistry] = None,
+                 tracer: Tracer = NULL_TRACER):
+        self.transport = transport
+        self.device = resolve_device(device)
+        if store is None:
+            store = DedupStore(directory, cdc_params, device=self.device)
+        elif store.device != self.device:
+            raise ValueError(f"ImageClient on {self.device} was given a "
+                             f"store on {store.device}")
+        self.store = store
+        self.cdmt_params = cdmt_params
+        self.indexes: Dict[str, CDMT] = indexes if indexes is not None else {}
+        # per-tag tree cache: "lineage:tag" -> CDMT.  Without it, every
+        # push/pull of a non-head tag rebuilt the full tree from the recipe
+        # (O(n) hashing); with it, a cached tree is returned directly and a
+        # cold tag is built incrementally against the head (O(k·depth)).
+        self.tag_trees: Dict[str, CDMT] = \
+            tag_trees if tag_trees is not None else {}
+        self.batch_chunks = max(1, batch_chunks)
+        self.pipeline_depth = max(1, pipeline_depth)
+        self.log: List[TransferReport] = []
+        # adopt the transport's registry so client_* series land next to
+        # transport_* ones; an explicit `metrics` overrides, a transportless
+        # client gets its own
+        if metrics is None:
+            metrics = getattr(transport, "metrics", None)
+        self.metrics = metrics if metrics is not None else MetricsRegistry()
+        self.tracer = tracer
+        tname = transport.name if transport is not None else "none"
+        self._m_pull = self.metrics.histogram(
+            "client_pull_seconds", "end-to-end pull execution latency",
+            ("transport",), buckets=LATENCY_BUCKETS).labels(tname)
+        self._m_push = self.metrics.histogram(
+            "client_push_seconds", "end-to-end push latency",
+            ("transport",), buckets=LATENCY_BUCKETS).labels(tname)
+        self._m_pull_chunks = self.metrics.counter(
+            "client_chunks_pulled_total", "chunks moved by pulls",
+            ("transport",)).labels(tname)
+        self._m_pull_bytes = self.metrics.counter(
+            "client_wire_bytes_total",
+            "total wire bytes across pulls and pushes",
+            ("transport",)).labels(tname)
+
+    def bind(self, transport: Transport) -> "ImageClient":
+        """A client over ``transport`` sharing this client's local state."""
+        return ImageClient(transport, device=self.device,
+                           store=self.store, indexes=self.indexes,
+                           tag_trees=self.tag_trees,
+                           cdc_params=self.store.cdc_params,
+                           cdmt_params=self.cdmt_params,
+                           batch_chunks=self.batch_chunks,
+                           pipeline_depth=self.pipeline_depth,
+                           tracer=self.tracer)
+
+    def _require_transport(self) -> Transport:
+        if self.transport is None:
+            raise DeliveryError(
+                "ImageClient has no transport bound — use bind() or pass "
+                "one at construction")
+        return self.transport
+
+    # ---------------------------------------------------------------- commit
+
+    # api-boundary
+    def commit(self, lineage: str, tag: str, data: bytes) -> Recipe:
+        """Chunk + locally store a new artifact version, build local CDMT
+        (incrementally against the lineage head when one exists)."""
+        recipe = self.store.ingest(f"{lineage}:{tag}", data)
+        head = self.indexes.get(lineage)
+        if head is not None and head.root is not None:
+            tree = CDMT.build_incremental(head, recipe.fps,
+                                          params=self.cdmt_params)
+        else:
+            tree = CDMT.build(recipe.fps, params=self.cdmt_params)
+        self.indexes[lineage] = tree
+        self.tag_trees[f"{lineage}:{tag}"] = tree
+        return recipe
+
+    # api-boundary
+    def index_for_tag(self, lineage: str, tag: str) -> CDMT:
+        """The CDMT for a committed tag, from the per-tag cache when warm.
+
+        A cold non-head tag is built **incrementally** against the lineage
+        head (leaf sequences of adjacent versions overlap heavily), so
+        repeated pushes/pulls of older tags no longer pay a full O(n)
+        rebuild; the result is cached."""
+        key = f"{lineage}:{tag}"
+        recipe = self.store.recipes.get(key)
+        if recipe is None:
+            raise DeliveryError(
+                f"index_for_tag: {key!r} has never been committed or "
+                f"pulled on this client")
+        cached = self.tag_trees.get(key)
+        if cached is not None and cached.leaf_fps() == list(recipe.fps):
+            return cached
+        head = self.indexes.get(lineage)
+        if head is not None and head.leaf_fps() == list(recipe.fps):
+            tree = head
+        elif head is not None and head.root is not None:
+            tree = CDMT.build_incremental(head, recipe.fps,
+                                          params=self.cdmt_params)
+        else:
+            tree = CDMT.build(recipe.fps, params=self.cdmt_params)
+        self.tag_trees[key] = tree
+        return tree
+
+    # api-boundary
+    def materialize(self, lineage: str, tag: str) -> bytes:
+        return self.store.restore(f"{lineage}:{tag}")
+
+    # ------------------------------------------------------------------ pull
+
+    # api-boundary
+    def plan_pull(self, lineage: str, tag: str) -> PullPlan:
+        """Decide a pull without transferring a chunk (Algorithm 2 + local
+        store dedup).  ``execute`` runs the resulting plan."""
+        with self.tracer.span("plan_pull", lineage=lineage, tag=tag) as sp:
+            plan = self._plan_pull(lineage, tag)
+            sp.annotate(chunks_missing=len(plan.missing),
+                        already_local=plan.already_local,
+                        expected_wire_bytes=plan.expected_wire_bytes)
+            return plan
+
+    def _plan_pull(self, lineage: str, tag: str) -> PullPlan:
+        transport = self._require_transport()
+        index, index_bytes = transport.get_index(lineage, tag)
+        recipe, recipe_bytes = transport.get_recipe(lineage, tag)
+        comparisons = [0]
+
+        def tick():
+            comparisons[0] += 1
+
+        local = self.indexes.get(lineage)
+        missing: List[bytes] = []
+        already_local = 0
+        for fp in iter_missing_leaves(local, index, on_compare=tick):
+            # global dedup: a chunk may live locally under another lineage
+            if self.store.chunks.has(fp):
+                already_local += 1
+            else:
+                missing.append(fp)
+        size_of = dict(zip(recipe.fps, recipe.sizes))
+        expected_chunk_bytes = sum(size_of[fp] for fp in missing)
+        expected_wire = index_bytes + recipe_bytes
+        if missing:
+            sizes = [size_of[fp] for fp in missing]
+            # the backend may split each request batch into smaller response
+            # frames (RegistryServer.max_batch_chunks) — quote that exactly.
+            # A transport with extra per-response cost (the socket path's
+            # envelope) quotes its own batches via the hook instead.
+            quote = getattr(transport, "quote_chunk_batches", None)
+            sub = getattr(transport, "response_batch_chunks",
+                          self.batch_chunks)
+            for start in range(0, len(sizes), self.batch_chunks):
+                part = sizes[start:start + self.batch_chunks]
+                if quote is not None:
+                    expected_wire += quote(part)
+                else:
+                    expected_wire += wire.chunk_batches_wire_bytes(part, sub)
+        return PullPlan(lineage=lineage, tag=tag, transport=transport.name,
+                        index=index, recipe=recipe, missing=missing,
+                        chunks_total=len(recipe.fps),
+                        already_local=already_local,
+                        raw_bytes=recipe.total_size,
+                        expected_chunk_bytes=expected_chunk_bytes,
+                        expected_wire_bytes=expected_wire,
+                        comparisons=comparisons[0],
+                        index_bytes=index_bytes, recipe_bytes=recipe_bytes)
+
+    # api-boundary
+    def execute(self, plan: PullPlan) -> TransferReport:
+        """Run a pull plan: stream the fetch list in pipelined batches,
+        account per source, verify coverage, ingest atomically.
+
+        Failover across sources happens inside the transport (each batch
+        returns per-source legs); a fingerprint no source could serve fails
+        the whole pull with :class:`DeliveryError` before anything is
+        committed to the local store."""
+        transport = self._require_transport()
+        if transport.name != plan.transport:
+            raise DeliveryError(
+                f"plan was made for transport {plan.transport!r}, "
+                f"executing on {transport.name!r}")
+        t0 = time.perf_counter()
+        report = TransferReport(op="pull", lineage=plan.lineage, tag=plan.tag,
+                                transport=transport.name,
+                                chunks_total=plan.chunks_total,
+                                raw_bytes=plan.raw_bytes,
+                                index_bytes=plan.index_bytes,
+                                recipe_bytes=plan.recipe_bytes,
+                                comparisons=plan.comparisons)
+        received: Dict[bytes, bytes] = {}
+        # re-check the store at execute time: chunks may have landed (another
+        # lineage's pull) between plan and execute
+        to_fetch = [fp for fp in plan.missing
+                    if not self.store.chunks.has(fp)]
+        with self.tracer.span("execute", lineage=plan.lineage, tag=plan.tag,
+                              transport=transport.name,
+                              chunks=len(to_fetch)) as exec_sp:
+            # batches run on pool threads: capture the submitting thread's
+            # span and attach each batch's child explicitly
+            parent = self.tracer.current()
+
+            def fetch(batch, n):
+                with self.tracer.span("fetch_batch", parent=parent,
+                                      batch=n, chunks=len(batch)):
+                    return transport.fetch_chunks(plan.lineage, plan.tag,
+                                                  batch)
+
+            with ThreadPoolExecutor(max_workers=self.pipeline_depth) as pool:
+                pending: "deque" = deque()
+                for i, start in enumerate(
+                        range(0, len(to_fetch), self.batch_chunks)):
+                    batch = to_fetch[start:start + self.batch_chunks]
+                    # bounded pipeline: never more than pipeline_depth
+                    # batches in flight — drain the oldest *before*
+                    # submitting the next
+                    while len(pending) >= self.pipeline_depth:
+                        self._drain(pending.popleft(), received, report)
+                    pending.append(pool.submit(fetch, batch, i))
+                while pending:
+                    self._drain(pending.popleft(), received, report)
+
+            undelivered = [fp for fp in to_fetch if fp not in received]
+            if undelivered:
+                raise DeliveryError(
+                    f"pull {plan.lineage}:{plan.tag}: no source could serve "
+                    f"{len(undelivered)} requested chunk(s) "
+                    f"(first: {undelivered[0].hex()[:12]})")
+            # transports hashing payloads on decode skip the 2nd hash here
+            with self.tracer.span("ingest", chunks=len(received)):
+                self.store.ingest_chunks(
+                    f"{plan.lineage}:{plan.tag}", plan.recipe.fps, received,
+                    plan.recipe.sizes,
+                    verify=not transport.verifies_payloads)
+            self.indexes[plan.lineage] = plan.index
+            self.tag_trees[f"{plan.lineage}:{plan.tag}"] = plan.index
+            transport.notify_pulled(plan.lineage, plan.tag)
+            exec_sp.annotate(chunks_moved=report.chunks_moved,
+                             wire_bytes=report.total_wire_bytes)
+        self._m_pull.observe(time.perf_counter() - t0)
+        self._m_pull_chunks.inc(report.chunks_moved)
+        self._m_pull_bytes.inc(report.total_wire_bytes)
+        self.log.append(report)
+        return report
+
+    @staticmethod
+    def _drain(fut, received: Dict[bytes, bytes],
+               report: TransferReport) -> None:
+        result = fut.result()
+        received.update(result.chunks)
+        for leg in result.legs:
+            report.merge_leg(leg)
+
+    # api-boundary
+    def pull(self, lineage: str, tag: str) -> TransferReport:
+        """Plan + execute in one call (the common case)."""
+        with self.tracer.span("pull", lineage=lineage, tag=tag):
+            return self.execute(self.plan_pull(lineage, tag))
+
+    # api-boundary
+    def upgrade(self, lineage: str) -> TransferReport:
+        """Pull the lineage head (rolling-upgrade entry point)."""
+        tags = self._require_transport().tags(lineage)
+        if not tags:
+            raise DeliveryError(f"upgrade: unknown lineage {lineage!r}")
+        return self.pull(lineage, tags[-1])
+
+    # ------------------------------------------------------------------ push
+
+    # api-boundary
+    def push(self, lineage: str, tag: str,
+             parent_version: Optional[int] = None) -> TransferReport:
+        """Push a committed version: Algorithm 2 against the registry head,
+        presence-check the diff, ship only chunks the backend lacks."""
+        t0 = time.perf_counter()
+        with self.tracer.span("push", lineage=lineage, tag=tag) as sp:
+            report = self._push(lineage, tag, parent_version)
+            sp.annotate(chunks_moved=report.chunks_moved,
+                        wire_bytes=report.total_wire_bytes)
+        self._m_push.observe(time.perf_counter() - t0)
+        self._m_pull_bytes.inc(report.total_wire_bytes)
+        return report
+
+    def _push(self, lineage: str, tag: str,
+              parent_version: Optional[int] = None) -> TransferReport:
+        transport = self._require_transport()
+        recipe = self.store.recipes.get(f"{lineage}:{tag}")
+        if recipe is None:
+            raise DeliveryError(
+                f"push {lineage}:{tag}: version was never committed on "
+                f"this client — call commit() first")
+        local_idx = self.index_for_tag(lineage, tag)
+        report = TransferReport(op="push", lineage=lineage, tag=tag,
+                                transport=transport.name,
+                                chunks_total=len(recipe.fps),
+                                raw_bytes=recipe.total_size)
+        remote_idx, down_bytes = transport.get_latest_index(lineage)
+        report.index_bytes += down_bytes
+        comparisons = [0]
+
+        def tick():
+            comparisons[0] += 1
+
+        candidates = list(iter_missing_leaves(remote_idx, local_idx,
+                                              on_compare=tick))
+        report.comparisons = comparisons[0]
+        if candidates:
+            # the index says these changed; the presence check says which the
+            # backend truly lacks (cross-lineage server-side dedup)
+            to_send, has_bytes = transport.has_chunks(candidates)
+            report.want_bytes += has_bytes
+        else:
+            to_send = []
+        payload: Dict[bytes, bytes] = {}
+        for fp in to_send:
+            try:
+                payload[fp] = self.store.chunks.get(fp)
+            except KeyError:
+                raise DeliveryError(
+                    f"push {lineage}:{tag}: candidate chunk "
+                    f"{fp.hex()[:12]} is not in the local store") from None
+        outcome = transport.push(lineage, tag, recipe, payload,
+                                 parent_version=parent_version,
+                                 claimed_root=local_idx.root,
+                                 claimed_params=self.cdmt_params)
+        report.index_bytes += outcome.header_bytes
+        report.recipe_bytes = outcome.recipe_bytes
+        report.chunks_moved = len(payload)
+        report.rounds = outcome.rounds
+        leg = report.leg("registry")
+        leg.chunks += len(payload)
+        leg.chunk_bytes += outcome.chunk_bytes
+        leg.rounds += outcome.rounds
+        report.chunk_bytes += outcome.chunk_bytes
+        self.log.append(report)
+        return report
